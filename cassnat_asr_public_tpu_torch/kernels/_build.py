@@ -39,6 +39,7 @@ SIGNATURES = {
        for t in ("f32", "bf16")},
     "cassnat_fused_conv_frontend": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
+    "cassnat_fused_frontend_plan": [_I, _I, _I, _I, _IA],
     "cassnat_conformer_ptr_names": [],
     "cassnat_conformer_scratch_bytes": [_I, _IA, _I],
     "cassnat_conformer_smem_bytes": [_I, _IA, _I],

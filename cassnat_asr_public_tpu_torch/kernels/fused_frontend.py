@@ -14,15 +14,15 @@ device memory.
 
 On the H100 (csrc/fused_frontend.cu): conv2 is the work, 2*9*C^2 FLOPs per
 output position (1.67 TFLOP at B=32, T=736, F=240, C=512), so the bound
-is arithmetic (1.7 ms at the bf16 tensor-core peak). The kernel is an
-implicit GEMM with f32 accumulation: one block per (batch, tile of output
-rows and columns, 128 output channels). For each slice of conv2's input
-channels it computes the conv1 rows the tile needs (with the halo, zero
-outside the valid range as conv2's padding) into shared memory, stages the
-matching w2 slice beside them, and accumulates the nine taps from there:
-on the tensor cores (WMMA, bf16 operands) for bf16 inputs, on the CUDA
-cores for f32 inputs (no TF32 rounding). conv1 runs on the CUDA cores in
-f32 in both. wgmma/TMA pipelining is later work.
+is arithmetic (1.7 ms at the bf16 tensor-core peak). Both routes are
+implicit GEMMs with f32 accumulation that keep conv1's output in shared
+memory (zero outside the valid range, conv2's padding). bf16 inputs run
+a persistent, warp-specialised kernel: w2 packed (9, Cout, Cin) by
+`pack_w2` arrives by TMA, conv1 runs once per tile position on the
+tensor cores (w1 split exactly into bf16 hi + lo, f32 sums) in slices of
+32 channels, and conv2 runs on wgmma m64n256k16 over tiles of 128 output
+positions x 256 channels (the .cu chooses the tile; `plan` reports it).
+f32 inputs run conv1 and conv2 on the CUDA cores (no TF32 rounding).
 
 `fused_conv_frontend` launches the kernel for CUDA tensors and computes
 `fused_conv_frontend_plain` only for CPU tensors; `launches` counts kernel
@@ -69,6 +69,31 @@ def fused_conv_frontend_plain(x, w1, b1, w2, b2):
     return torch.relu(acc + b2.float()).to(x.dtype)
 
 
+def pack_w2(w2, dtype):
+    """OIHW w2 -> the kernel's layout in `dtype`: (9, Cout, Cin), tap
+    3 dt + df, for bf16 (K-major, what the wgmma B descriptor reads);
+    (9, Cin, Cout) for f32."""
+    c = w2.shape[0]
+    if dtype == torch.bfloat16:
+        return w2.permute(2, 3, 0, 1).reshape(9, c, c).to(dtype).contiguous()
+    return w2.permute(2, 3, 1, 0).reshape(9, c, c).to(dtype).contiguous()
+
+
+def plan(b: int, t: int, f: int, c: int) -> dict:
+    """The bf16 route's launch plan on the current card, for logs: the
+    tile (TT rows x FW columns of output positions, at most tile_m with
+    the padding column, x tile_n channels), conv2's input slice, grid,
+    shared memory and w2 ring depth."""
+    import ctypes
+    keys = ("tt", "fw", "tile_m", "tile_n", "slice", "grid", "threads",
+            "smem_bytes", "w2_stages", "h1_stage_bytes", "tiles",
+            "window_positions")
+    vals = (ctypes.c_int * len(keys))()
+    _build.check(_build.lib().cassnat_fused_frontend_plan(b, t, f, c, vals),
+                 "fused_frontend_plan")
+    return dict(zip(keys, vals))
+
+
 def fused_conv_frontend(x, w1, b1, w2, b2):
     """relu(conv2(relu(conv1(x)))) for the 3x3/s2/p1 frontend, fused."""
     if x.device.type == "cpu":
@@ -92,9 +117,9 @@ def fused_conv_frontend(x, w1, b1, w2, b2):
     if any(p.device != x.device for p in (w1, b1, w2, b2)):
         raise ValueError("fused_conv_frontend: tensors on different devices")
     x = x.contiguous()
-    # kernel layouts: w1 (9, C) f32 tap-major; w2 (9, Cin, Cout) in x.dtype
+    # kernel layouts: w1 (9, C) f32 tap-major; w2 by pack_w2
     w1k = w1.reshape(c, 9).t().float().contiguous()
-    w2k = w2.permute(2, 3, 1, 0).reshape(9, c, c).to(x.dtype).contiguous()
+    w2k = pack_w2(w2, x.dtype)
     b1k, b2k = b1.float().contiguous(), b2.float().contiguous()
     t4, f4 = _out_len(_out_len(t)), _out_len(_out_len(f))
     out = torch.empty((bsz, t4, f4, c), dtype=x.dtype, device=x.device)

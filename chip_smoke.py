@@ -357,10 +357,16 @@ def phase_kernels(dev):
             hh = F.relu(F.conv2d(xs[:, None], lw1, lb1, 2, 1))
             return F.relu(F.conv2d(hh, cw2, lb2, 2, 1))
 
+        if dtype == torch.bfloat16:
+            log(f"  fused_conv_frontend bfloat16 plan: "
+                f"{json.dumps(ff.plan(b, PATH_T, f, c))}")
         ms = cuda_ms(lambda: ff.fused_conv_frontend(*args), 5)
         plain_ms = cuda_ms(lambda: ff.fused_conv_frontend_plain(*args), 3,
                            warmup=1)
         lib_ms = cuda_ms(library, 5)
+        # device time alone, back to back behind the spin kernel
+        queued = queued_ms(lambda: ff.fused_conv_frontend(*args), 5)
+        queued_lib = queued_ms(library, 5)
         esz = xs.element_size()
         nbytes = esz * (b * PATH_T * f + b * t4 * f4 * c + 9 * c * c) \
             + 4 * (9 * c + 2 * c)
@@ -369,10 +375,14 @@ def phase_kernels(dev):
         fr[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound,
                          bound_by="bytes" if nbytes / PEAK_BYTES
-                         >= ops / PEAK_OPS[dtype] else "operations")
+                         >= ops / PEAK_OPS[dtype] else "operations",
+                         queued_ms=queued, queued_library_ms=queued_lib,
+                         tflops=ops / queued * 1e-9)
         log(f"  fused_conv_frontend {str(dtype)[6:]} B={b} T={PATH_T} F={f} "
             f"C={c}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"conv2d x2 {lib_ms:.3f} ms, bound {bound:.3f} ms")
+            f"conv2d x2 {lib_ms:.3f} ms per unqueued call; queued: kernel "
+            f"{queued:.3f} ms ({ops / queued * 1e-9:.1f} TFLOP/s), conv2d x2 "
+            f"{queued_lib:.3f} ms; bound {bound:.3f} ms")
     results["fused_conv_frontend"] = fr
     results.update(conformer_kernels(dev))
     return results

@@ -202,32 +202,126 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, dtype, case):
     assert got.float()[dead[:, None].expand(b, h, tq)].abs().max() == 0.0
 
 
+def _tiled_emulation(x, w1, b1, w2, b2, tt, fw, tile_m=128):
+    """The bf16 kernel's indexing in plain PyTorch (f32 sums), for tiles of
+    TT rows x FW columns of output positions: M row m of a tile (tile_m
+    rows) is output (m // HWp, m % HWp), HWp = FW + 1, conv1's window
+    positions go into the four (row parity, column parity) planes at the
+    kernel's offsets, every tap of M row m reads plane (dt % 2, df % 2) at
+    position m + (dt // 2) HWp + df // 2, and w2 is read through
+    `ff.pack_w2`'s (9, Cout, Cin) layout. h1 is rounded to x.dtype as the
+    kernel rounds it; only rows with m % HWp < FW inside (T4, F4) are
+    written."""
+    bsz, t, f = x.shape
+    c = w2.shape[0]
+    hwp = fw + 1
+    assert tt * hwp <= tile_m
+    h1 = F.relu(F.conv2d(x.float()[:, None], w1.float(), b1.float(), 2, 1))
+    h1 = h1.to(x.dtype).float().permute(0, 2, 3, 1)  # (B, T2, F2, C)
+    t2_n, f2_n = h1.shape[1:3]
+    t4_n, f4_n = (t2_n + 1) // 2, (f2_n + 1) // 2
+    w2p = ff.pack_w2(w2, torch.bfloat16).float()  # (9, Cout, Cin)
+    n_pos = (2 * tt + 1) * 2 * hwp
+    pitch = max((tt + 1) * hwp, tile_m + hwp + 1)
+    m = torch.arange(tile_m)
+    out = torch.zeros(bsz, t4_n, f4_n, c)
+    for b in range(bsz):
+        for t4_0 in range(0, t4_n, tt):
+            for f4_0 in range(0, f4_n, fw):
+                planes = torch.zeros(4, pitch, c)
+                for i in range(n_pos):
+                    rp, half = divmod(i, hwp)
+                    r, par = divmod(rp, 2)
+                    col = 2 * half + par
+                    t2, f2 = 2 * t4_0 - 1 + r, 2 * f4_0 - 1 + col
+                    if col <= 2 * fw and 0 <= t2 < t2_n and 0 <= f2 < f2_n:
+                        planes[(r % 2) * 2 + par,
+                               (r // 2) * hwp + half] = h1[b, t2, f2]
+                acc = torch.zeros(tile_m, c)
+                for tap in range(9):
+                    dt, df = divmod(tap, 3)
+                    rows = m + (dt // 2) * hwp + df // 2
+                    acc += planes[(dt % 2) * 2 + df % 2][rows] @ w2p[tap].t()
+                res = torch.relu(acc + b2.float()).to(x.dtype).float()
+                for mm in range(tt * hwp):
+                    ti, fi = divmod(mm, hwp)
+                    if fi < fw and t4_0 + ti < t4_n and f4_0 + fi < f4_n:
+                        out[b, t4_0 + ti, f4_0 + fi] = res[mm]
+    return out.to(x.dtype)
+
+
+# (c, t, tt, fw): F = 80 gives F4 = 20. (6, 20) is the kernel's own tile
+# there (one column tile, TT = 128 // 21); (4, 7) splits both T4 and F4
+# into ragged tiles (3 x 3 at T = 37).
+@pytest.mark.parametrize("c,t,tt,fw", [(16, 37, 4, 7), (144, 21, 6, 20)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 1.6e-2)],
+                         ids=["f32", "bf16"])
+def test_fused_frontend_tiling_matches_plain(c, t, tt, fw, dtype, atol):
+    """The bf16 kernel's w2 packing, tap order and shifted-row reads,
+    emulated on the CPU, equal the plain version at F = 80 (the synth
+    checkpoint's width) and odd T. w2 is bf16-exact so that the f32 case
+    checks the indexing alone (atol 1e-4: order of f32 sums); in bf16 the
+    two round h1 and the output at the same places, and a sum on the
+    other side of a rounding boundary moves an output by one bf16 ulp
+    (2^-7 at magnitudes below 4)."""
+    rng = np.random.default_rng(c + t)
+    x = torch.from_numpy(rng.standard_normal((2, t, 80)).astype(np.float32))
+    w1 = torch.from_numpy(rng.standard_normal((c, 1, 3, 3))
+                          .astype(np.float32) * 0.3)
+    w2 = torch.from_numpy(rng.standard_normal((c, c, 3, 3)).astype(
+        np.float32) / (3 * c ** 0.5)).to(torch.bfloat16).float()
+    b1 = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1)
+    b2 = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1)
+    x, w2d = x.to(dtype), w2.to(dtype)
+    want = ff.fused_conv_frontend_plain(x, w1, b1, w2d, b2)
+    got = _tiled_emulation(x, w1, b1, w2d, b2, tt, fw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=0)
+
+
+# (b, t, f, c): x and w2 in the dtype, conv1 and the biases in f32, as the
+# model passes them. C = 20 runs only in f32 (bf16 needs C % 8 == 0);
+# F = 1028 makes F4 = 257 columns, tiled five times. bf16 adds the path
+# geometry at B = 2, T4 = 25 and 3 (not multiples of the 2-row time tile),
+# C = 136 (a partial K slice and N tile) and the synth checkpoint's C = 144,
+# F = 80 (already in the common shapes).
+FRONTEND_SHAPES = [(2, 101, 80, 144), (2, 64, 240, 512), (1, 9, 6, 24),
+                   (1, 13, 1028, 16)]
+FRONTEND_CASES = (
+    [(torch.float32, s) for s in FRONTEND_SHAPES + [(1, 9, 6, 20)]]
+    + [(torch.bfloat16, s) for s in FRONTEND_SHAPES
+       + [(2, 736, 240, 512), (2, 99, 240, 512), (2, 37, 80, 136),
+          (1, 9, 240, 512)]])
+FRONTEND_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 6e-2)])
-def test_fused_frontend_kernel_matches_plain_on_card(cuda, dtype, tol):
-    """x and w2 in `dtype`, conv1 and the biases in f32, as the model passes
-    them. C = 20 runs only in f32 (bf16 needs C % 8 == 0); F = 1028 makes
-    F4 = 257 > 128 columns, tiled three times."""
-    g = torch.Generator(device="cpu").manual_seed(0)
-    shapes = [(2, 101, 80, 144), (2, 64, 240, 512), (1, 9, 6, 24),
-              (1, 13, 1028, 16)]
-    if dtype == torch.float32:
-        shapes.append((1, 9, 6, 20))
-    for b, t, f, c in shapes:
-        x = torch.randn(b, t, f, generator=g).to(cuda, dtype)
-        w1 = (torch.randn(c, 1, 3, 3, generator=g) * 0.3).to(cuda)
-        w2 = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(
-            cuda, dtype)
-        b1 = (torch.randn(c, generator=g) * 0.1).to(cuda)
-        b2 = (torch.randn(c, generator=g) * 0.1).to(cuda)
-        before = ff.launches
-        got = ff.fused_conv_frontend(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        assert ff.launches == before + 1
-        want = ff.fused_conv_frontend_plain(x, w1, b1, w2, b2)
-        err = (got.float() - want.float()).abs().max().item()
-        assert err < tol, (b, t, f, c, err)
+@pytest.mark.parametrize(
+    "dtype,shape", FRONTEND_CASES,
+    ids=[f"{str(d)[6:]}-{'x'.join(map(str, s))}" for d, s in FRONTEND_CASES])
+def test_fused_frontend_kernel_matches_plain_on_card(cuda, dtype, shape):
+    """The kernel against its plain version on the same inputs, max abs
+    error under 1e-4 in f32 (order of sums) and 6e-2 in bf16 (h1 and the
+    output rounded to bf16 at the same places; a sum on the other side of
+    a rounding boundary moves an h1 value by one ulp)."""
+    b, t, f, c = shape
+    g = torch.Generator(device="cpu").manual_seed(t * 1000 + c)
+    x = torch.randn(b, t, f, generator=g).to(cuda, dtype)
+    w1 = (torch.randn(c, 1, 3, 3, generator=g) * 0.3).to(cuda)
+    w2 = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(
+        cuda, dtype)
+    b1 = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    b2 = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    before = ff.launches
+    got = ff.fused_conv_frontend(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ff.launches == before + 1
+    want = ff.fused_conv_frontend_plain(x, w1, b1, w2, b2)
+    assert got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < FRONTEND_TOL[dtype], (shape, err)
 
 
 @pytest.mark.cuda
