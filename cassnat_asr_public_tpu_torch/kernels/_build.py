@@ -43,6 +43,7 @@ SIGNATURES = {
     "cassnat_conformer_ptr_names": [],
     "cassnat_conformer_scratch_bytes": [_I, _IA, _I],
     "cassnat_conformer_smem_bytes": [_I, _IA, _I],
+    "cassnat_conformer_plan": [_I, _IA, _IA],
     "cassnat_conformer_half_a": [_PA, _IA, _I, _P],
     "cassnat_conformer_half_b": [_PA, _IA, _I, _P],
     "cassnat_conformer_half_a_kv": [_PA, _IA, _I, _P],

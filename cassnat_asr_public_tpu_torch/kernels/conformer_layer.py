@@ -33,7 +33,12 @@ replaced or changed in place.
 On the H100, one layer at B=32, T'=184, D=512 is ~49 GFLOP of products,
 bound by arithmetic (~0.05 ms in bf16): the kernels' design, and how the
 row-wide attention, depthwise halo and GroupNorm statistics cross the time
-tiles, is in the header of csrc/conformer_layer.cu.
+tiles, is in the header of csrc/conformer_layer.cu. bf16 half A and half B
+run their products on wgmma with both operands by TMA; they read the
+products' weights packed (N, K), K-major as the wgmma B descriptor reads
+them (`LayerPack.kmajor`, by `pack_kmajor`), and the .cu chooses each
+product's tile width (`plan` reports it). The f32 kernels and the bf16
+q-blocked pair read (K, N).
 """
 
 import ctypes
@@ -56,6 +61,9 @@ PTR_NAMES = ("x", "maskf", "norms", "w1a", "b1a", "w2a", "b2a", "wqkv",
 _KINDS = {"half_a": 0, "half_b": 1, "half_a_kv": 2, "half_a_qblock": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = dict.fromkeys(_KINDS, 0)
+# bf16 half A / half B products in phase order, by weight slot
+PRODUCTS = {"half_a": ("w1a", "w2a", "wqkv", "wo"),
+            "half_b": ("pw1", "pw2", "w1b", "w2b")}
 
 
 def layernorm(x32, scale, bias):
@@ -119,12 +127,27 @@ class LayerPack:
         self.dw = f32(ops["dw"][:, 0, :].t())
         self.dwb = f32(ops["dw_b"])
         self.pw2, self.pw2b = pw(ops["pw2"]), f32(ops["pw2_b"])
+        # the bf16 halves' products read their weights (N, K)
+        self.kmajor = pack_kmajor(ops, cd) if cd == torch.bfloat16 else {}
 
     def position(self, pos_table):
         """p = pos_table @ W_pos in f32 from operands rounded to the compute
         type, rounded to it (JAX :249)."""
         cd = self.compute_dtype
         return torch.matmul(pos_table.to(cd).float(), self.wpos).to(cd)
+
+
+def pack_kmajor(ops, cd):
+    """The products' weights (N, K) in `cd`, K-major: the layout the wgmma
+    B descriptor of the bf16 half A / half B kernels reads (PyTorch's own
+    Linear and pointwise-Conv1d layout), by pointer slot."""
+    nk = lambda t: t.detach().to(cd).contiguous()
+    pw = lambda t: t.detach()[:, :, 0].to(cd).contiguous()
+    return {"w1a": nk(ops["ff1_w1"]), "w2a": nk(ops["ff1_w2"]),
+            "wqkv": nk(torch.cat([ops["wq"], ops["wk"], ops["wv"]], 0)),
+            "wo": nk(ops["wo"]), "w1b": nk(ops["ff2_w1"]),
+            "w2b": nk(ops["ff2_w2"]), "pw1": pw(ops["pw1"]),
+            "pw2": pw(ops["pw2"])}
 
 
 def _flat_tensors(ops):
@@ -285,6 +308,22 @@ def scratch_bytes(kind, pk, x, pos=None, tq=1):
         _KINDS[kind], _dims(pk, x, pos, tq), _DTYPES[x.dtype])
 
 
+def plan(kind, pk, x, pos=None):
+    """The bf16 launch plan of "half_a" or "half_b" for these inputs on the
+    current card, for logs: grid, threads, shared memory, ring stages, and
+    per product (phase order) N, K and its tile (rows x width, count)."""
+    vals = (ctypes.c_int * 24)()
+    _build.check(_checked_lib().cassnat_conformer_plan(
+        _KINDS[kind], _dims(pk, x, pos, 1), vals), f"{kind} plan")
+    out = dict(zip(("grid", "threads", "smem_bytes", "stages"), vals[:4]))
+    out["products"] = [
+        dict(weight=name, n=vals[4 + 5 * i], k=vals[5 + 5 * i],
+             tile=f"{vals[6 + 5 * i]}x{vals[7 + 5 * i]}",
+             tiles=vals[8 + 5 * i])
+        for i, name in enumerate(PRODUCTS[kind])]
+    return out
+
+
 def _launch(kind, pk, x, out, pos=None, tq=1, **tensors):
     lib = _checked_lib()
     t = x.shape[1]
@@ -327,7 +366,8 @@ def half_a(pk, x, maskf, pos):
     _check(pk, x, maskf, pos)
     maskf, pos = _mask_pos(pk, x, maskf, pos)
     x = x.contiguous()
-    return _launch("half_a", pk, x, torch.empty_like(x), pos, maskf=maskf)
+    return _launch("half_a", pk, x, torch.empty_like(x), pos, maskf=maskf,
+                   **pk.kmajor)
 
 
 def half_b(pk, x):
@@ -336,7 +376,7 @@ def half_b(pk, x):
         return half_b_plain(pk, x)
     _check(pk, x)
     x = x.contiguous()
-    return _launch("half_b", pk, x, torch.empty_like(x))
+    return _launch("half_b", pk, x, torch.empty_like(x), **pk.kmajor)
 
 
 def half_a_kv(pk, x):

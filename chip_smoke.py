@@ -19,8 +19,10 @@ Phases, each announced on a flushed progress line:
               the encoder's shapes
               (B=32, T'=184, q blocks of 64 ending in a partial block), with
               the unfused ConEncoderLayer's time as their yardstick (no
-              single library call computes the layer) and their device
-              scratch, then on a small batch with a length-0 row.
+              single library call computes the layer), their times also
+              queued behind a spin kernel with the TFLOP/s that gives, their
+              device scratch and the bf16 halves' launch plan, then on a
+              small batch with a length-0 row.
   2b. training kernels - the CTC Viterbi kernel and the three CTC-loss
               kernels (alpha, beta/posterior, gradient scatter) at the
               full-width training shapes (B=16, 400-800 input frames,
@@ -425,6 +427,30 @@ def conformer_bound(kind, b, t, d, h, f, k, p, sum_len, esz):
             2 * m * d * d + attn + 2 * m * d * d)
 
 
+def conformer_path_inputs(dev, dtype):
+    """The fused layer's inputs at the LibriSpeech encoder shapes of the
+    path batch (B=32, T'=184 with its spread of lengths), the same on every
+    call: the seeded layer, its pack, x (B, T', D) and the mask in `dtype`,
+    the valid lengths, the (2R+1, D) position table and its projection."""
+    c = LIBRISPEECH
+    b, t, d = PATH_B, PATH_T // 4, c["d_model"]
+    r = c["enc_max_relative_len"]
+    rng = np.random.default_rng(3)
+    frames = rng.integers(PATH_T * 400 // 736, PATH_T + 1, b)
+    frames[0] = PATH_T
+    lens = torch.from_numpy(((frames + 1) // 2 + 1) // 2)
+    maskf = (torch.arange(t)[None, :] < lens[:, None]).float().to(dev)
+    layer = seeded_layer(dev, dtype, d, c["n_head"], c["d_encff"],
+                         c["enc_kernel_size"], seed=7)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).to(dev, dtype)
+    table = torch.from_numpy(sinusoidal_position_encoding(
+        2 * r + 1, d)).to(dev, dtype)
+    pk = layer.packed(dtype)
+    return dict(layer=layer, pk=pk, x=x, maskf=maskf, lens=lens,
+                table=table, pos=pk.position(table))
+
+
 def conformer_kernels(dev):
     """The four fused-layer kernels against their plain versions at the
     LibriSpeech encoder shapes (B=32, T'=184 with the path batch's spread of
@@ -434,20 +460,12 @@ def conformer_kernels(dev):
     c = LIBRISPEECH
     b, t, d, h = PATH_B, PATH_T // 4, c["d_model"], c["n_head"]
     f, k, r = c["d_encff"], c["enc_kernel_size"], c["enc_max_relative_len"]
-    rng = np.random.default_rng(3)
-    frames = rng.integers(PATH_T * 400 // 736, PATH_T + 1, b)
-    frames[0] = PATH_T
-    lens = torch.from_numpy(((frames + 1) // 2 + 1) // 2)
-    maskf = (torch.arange(t)[None, :] < lens[:, None]).float().to(dev)
-    table = torch.from_numpy(sinusoidal_position_encoding(2 * r + 1, d))
+    rng = np.random.default_rng(4)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        layer = seeded_layer(dev, dtype, d, h, f, k, seed=7)
-        x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
-            np.float32)).to(dev, dtype)
-        pos_table = table.to(dev, dtype)
-        pk = layer.packed(dtype)
-        pos = pk.position(pos_table)
+        inp = conformer_path_inputs(dev, dtype)
+        layer, pk, x, maskf, lens, pos_table, pos = (inp[n] for n in (
+            "layer", "pk", "x", "maskf", "lens", "table", "pos"))
         kv = cl.half_a_kv_plain(pk, x)
         cases = {
             "half_a": (lambda: cl.half_a(pk, x, maskf, pos),
@@ -464,6 +482,10 @@ def conformer_kernels(dev):
                         "half_a_qblock": (pos, 64)}
         unfused_ms = cuda_ms(lambda: layer(x, maskf[:, None, :] > 0.5,
                                            pos_table), 10)
+        if dtype == torch.bfloat16:
+            for kind, extra in (("half_a", (pos,)), ("half_b", ())):
+                log(f"  conformer_{kind} bfloat16 plan: "
+                    f"{json.dumps(cl.plan(kind, pk, x, *extra))}")
         fused_ms = {}
         for kind, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -472,6 +494,8 @@ def conformer_kernels(dev):
                               scale_rule=True)
             del got, want
             ms = cuda_ms(kern, 10)
+            # device time alone, back to back behind the spin kernel
+            queued = queued_ms(kern, 10)
             plain_ms = cuda_ms(plain, 3, warmup=1)
             nbytes, ops = conformer_bound(kind, b, t, d, h, f, k, 2 * r + 1,
                                           int(lens.sum()), x.element_size())
@@ -482,19 +506,21 @@ def conformer_kernels(dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 unfused_ms=unfused_ms, bound_ms=bound, scratch_bytes=scratch,
                 bound_by="bytes" if nbytes / PEAK_BYTES
-                >= ops / PEAK_OPS[dtype] else "operations")
+                >= ops / PEAK_OPS[dtype] else "operations",
+                queued_ms=queued, tflops=ops / queued * 1e-9)
             log(f"  conformer_{kind} {str(dtype)[6:]} B={b} T'={t} D={d} "
-                f"H={h} F={f} K={k}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({ops / 1e9:.2f} "
-                f"GFLOP, {nbytes / 1e6:.1f} MB); device scratch "
-                f"{scratch / 1e6:.1f} MB")
+                f"H={h} F={f} K={k}: kernel {ms:.4f} ms unqueued, "
+                f"{queued:.4f} ms queued ({ops / queued * 1e-9:.1f} "
+                f"TFLOP/s), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device "
+                f"scratch {scratch / 1e6:.1f} MB")
         qblocked_ms = fused_ms["half_a_kv"] + fused_ms["half_a_qblock"] \
             + fused_ms["half_b"]
         log(f"  conformer layer {str(dtype)[6:]}: fused "
             f"{fused_ms['half_a'] + fused_ms['half_b']:.4f} ms, q-blocked "
             f"{qblocked_ms:.4f} ms, unfused ConEncoderLayer.forward "
             f"{unfused_ms:.4f} ms")
-        del layer, pk, kv
+        del layer, pk, kv, inp
         torch.cuda.empty_cache()
 
         # a length-0 row: finite, equal to the plain version
@@ -504,7 +530,7 @@ def conformer_kernels(dev):
         m0 = (torch.arange(40)[None, :] < torch.tensor([40, 0, 27])[:, None]
               ).float().to(dev)
         pk = small.packed(dtype)
-        pos = pk.position(table.to(dev, dtype))
+        pos = pk.position(pos_table)
         kv0 = cl.half_a_kv_plain(pk, x0)
         for kind, got, want in (
                 ("half_a", cl.half_a(pk, x0, m0, pos),

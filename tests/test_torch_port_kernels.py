@@ -351,24 +351,44 @@ def _random_layer(dev, d, h, f, k, seed):
     return layer.to(dev).eval()
 
 
+# (b, t, d, h, f, k, r, lengths): row 1 has length 0 (fully-masked
+# attention rows) unless the lengths say otherwise; tq = 16 and 64 divide
+# none of the T. M = B T is ragged against the 128-row product tiles in
+# every case (B = 2, T = 184 is the path's T' at B = 2). At T = 600 (a
+# ~24 s utterance) the bf16 attention item no longer holds a head's whole
+# K/V row in shared memory and takes it in chunks; at B = 20 the
+# depthwise tiles of a block (13 of 64 x 64) no longer stay in shared
+# memory and GroupNorm reads them back from scratch.
+CONFORMER_CASES = {
+    "cpu_widths": (3, 40, 64, 4, 128, 7, 8, None),
+    "synth_widths_d36": (3, 53, 144, 4, 288, 15, 16, None),
+    "librispeech_widths": (2, 70, 512, 8, 1024, 31, 20, None),
+    "path_widths_t184": (2, 184, 512, 8, 1024, 31, 20, None),
+    "all_rows_length_0": (2, 24, 64, 4, 128, 7, 8, (0, 0)),
+    "long_t600_kv_chunks": (2, 600, 512, 8, 1024, 31, 20, None),
+    "b20_t600_groupnorm_uncached": (20, 600, 512, 8, 1024, 31, 20, None),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,d,h,f,k,r", [
-    (3, 40, 64, 4, 128, 7, 8),        # the CPU tests' shapes
-    (3, 53, 144, 4, 288, 15, 16),     # the synth checkpoint's widths, dk=36
-    (2, 70, 512, 8, 1024, 31, 20)])   # the LibriSpeech widths
-def test_conformer_layer_kernels_match_plain_on_card(cuda, dtype, b, t, d, h,
-                                                     f, k, r):
+@pytest.mark.parametrize("case", list(CONFORMER_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conformer_layer_kernels_match_plain_on_card(cuda, dtype, case):
     """Each of the four kernels against its plain version on the same
-    inputs; row 1 has length 0 (fully-masked attention rows); tq = 16 and
-    64, neither dividing T."""
+    inputs, max abs error within 1e-4 x max(1, scale) in f32 (order of
+    sums) and 2e-2 x scale in bf16 (both round at the same places; a sum
+    on the other side of a rounding boundary moves an intermediate by one
+    bf16 ulp, which carries through the layer); one launch per call."""
     from cassnat_asr_public_tpu_torch.kernels import conformer_layer as cl
     from cassnat_asr_public_tpu_torch.nn.modules import \
         sinusoidal_position_encoding
+    b, t, d, h, f, k, r, lengths = CONFORMER_CASES[case]
     layer = _random_layer(cuda, d, h, f, k, seed=t)
     g = torch.Generator(device="cpu").manual_seed(t)
     x = torch.randn(b, t, d, generator=g).to(cuda, dtype)
-    lens = torch.tensor([t, 0] + [t - 13] * (b - 2))
+    lens = torch.tensor(lengths if lengths is not None
+                        else [t, 0] + [t - 13] * (b - 2))
     maskf = (torch.arange(t)[None, :] < lens[:, None]).float().to(cuda)
     rr = min(r, t - 1)
     table = torch.from_numpy(sinusoidal_position_encoding(2 * r + 1, d)[
@@ -399,3 +419,164 @@ def test_conformer_layer_kernels_match_plain_on_card(cuda, dtype, b, t, d, h,
               cl.half_a_qblock_plain(pk, *want, maskf, pos, tq))
     assert {n: cl.launches[n] - before[n] for n in before} == {
         "half_a": 1, "half_b": 1, "half_a_kv": 1, "half_a_qblock": 2}
+
+
+def _tc_product(a, w_nk, bn):
+    """The bf16 route's product tiling: 128 x bn output tiles, 64-deep
+    slices zero filled past M, N and K (TMA's out-of-bounds fill), f32
+    sums; w_nk is the (N, K) K-major weight of `cl.pack_kmajor`."""
+    m, depth = a.shape
+    n = w_nk.shape[0]
+    out = torch.full((m, n), float("nan"))
+    for m0 in range(0, m, 128):
+        for n0 in range(0, n, bn):
+            acc = torch.zeros(128, bn)
+            for k0 in range(0, depth, 64):
+                at, wt = torch.zeros(128, 64), torch.zeros(bn, 64)
+                blk = a[m0:m0 + 128, k0:k0 + 64]
+                at[:blk.shape[0], :blk.shape[1]] = blk
+                blk = w_nk[n0:n0 + bn, k0:k0 + 64]
+                wt[:blk.shape[0], :blk.shape[1]] = blk
+                acc += at @ wt.t()
+            rows, cols = min(128, m - m0), min(bn, n - n0)
+            out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+    return out
+
+
+def _tc_attention(pk, qu, qv, k, v, maskf, pos, cd):
+    """The bf16 route's attention items: (batch, head, 192 queries), 16
+    query rows a warp, keys in 64-key steps; small = (q+v) pos^T, scores
+    + small[clamp(key - q, -r, r) + r], masked -> -1e9, keys past T left
+    out; pass 1 the row max and sum of exp (online over the steps), pass 2
+    the weights exp(s - max) / max(sum, 1e-30) rounded to cd, times V."""
+    b, t, d = qu.shape
+    h = pk.n_head
+    dk = d // h
+    r = (pos.shape[0] - 1) // 2
+    inv = 1.0 / np.sqrt(dk)
+    ctx = torch.zeros(b, t, d)
+    for bi in range(b):
+        for hi in range(h):
+            cols = slice(hi * dk, hi * dk + dk)
+            kh, vh = k[bi, :, cols], v[bi, :, cols]
+            for q0 in range(0, t, 16):      # one warp's rows of an item
+                qi = torch.arange(q0, min(q0 + 16, t))
+                small = qv[bi, qi][:, cols] @ pos[:, cols].t()
+                m_run = torch.full((len(qi),), -float("inf"))
+                l_run = torch.zeros(len(qi))
+                steps = []
+                for k0 in range(0, t, 64):
+                    key = torch.arange(k0, min(k0 + 64, t))
+                    s = qu[bi, qi][:, cols] @ kh[key].t() * inv
+                    off = (key[None, :] - qi[:, None]).clamp(-r, r) + r
+                    s = s + torch.gather(small, 1, off) * inv
+                    ok = (maskf[bi, key] > 0.5)[None, :].expand_as(s)
+                    s = torch.where(ok, s, -1e9)
+                    m_new = torch.maximum(m_run, s.amax(1))
+                    corr = torch.where(m_run == m_new, 1.0,
+                                       torch.exp(m_run - m_new))
+                    l_run = l_run * corr + torch.where(
+                        ok, torch.exp(s - m_new[:, None]), 0.0).sum(1)
+                    m_run = m_new
+                    steps.append((key, s, ok))
+                den = l_run.clamp_min(1e-30)
+                o = torch.zeros(len(qi), dk)
+                for key, s, ok in steps:
+                    w = torch.where(ok, torch.exp(s - m_run[:, None]), 0.0)
+                    o += (w / den[:, None]).to(cd).float() @ vh[key]
+                ctx[bi, qi, cols] = o
+    return ctx
+
+
+def _tc_half_a(pk, w, x, maskf, pos, bn):
+    from cassnat_asr_public_tpu_torch.kernels import conformer_layer as cl
+    cd, d = pk.compute_dtype, pk.d
+    b, t, _ = x.shape
+    m = b * t
+    rd = lambda z: z.to(cd).float()
+    x32 = x.float().reshape(m, d)
+    hh = rd(cl.layernorm(x32, pk.norms[0], pk.norms[1]))
+    y = _tc_product(hh, w["w1a"], bn) + pk.b1a
+    mm = rd(y * torch.sigmoid(y))
+    x1 = x32 + 0.5 * (_tc_product(mm, w["w2a"], bn) + pk.b2a)
+    ln = rd(cl.layernorm(x1, pk.norms[2], pk.norms[3]))
+    y = _tc_product(ln, w["wqkv"], bn) + pk.bqkv
+    # the epilogue's split of column pairs (col, col + 1): segment col // D
+    qu, qv, k, v = (torch.full((m, d), float("nan")) for _ in range(4))
+    for col in range(0, 3 * d, 2):
+        seg, c = divmod(col, d)
+        pair = y[:, col:col + 2]
+        if seg == 0:
+            qu[:, c:c + 2] = rd(pair + pk.ubias[0, c:c + 2])
+            qv[:, c:c + 2] = rd(pair + pk.ubias[1, c:c + 2])
+        else:
+            (k if seg == 1 else v)[:, c:c + 2] = rd(pair)
+    heads = lambda z: z.reshape(b, t, d)
+    ctx = rd(_tc_attention(pk, heads(qu), heads(qv), heads(k), heads(v),
+                           maskf, pos.float(), cd).reshape(m, d))
+    out = x1 + (_tc_product(ctx, w["wo"], bn) + pk.bo)
+    return out.reshape(b, t, d).to(cd)
+
+
+def _tc_half_b(pk, w, x, bn):
+    from cassnat_asr_public_tpu_torch.kernels import conformer_layer as cl
+    cd, d, kk = pk.compute_dtype, pk.d, pk.kernel_size
+    b, t, _ = x.shape
+    m = b * t
+    rd = lambda z: z.to(cd).float()
+    x32 = x.float().reshape(m, d)
+    hh = rd(cl.layernorm(x32, pk.norms[4], pk.norms[5]))
+    pw = (_tc_product(hh, w["pw1"], bn) + pk.pw1b).reshape(b, t, 2 * d)
+    g = pw[..., :d] * torch.sigmoid(pw[..., d:])
+    gpad = F.pad(g, (0, 0, (kk - 1) // 2, kk // 2))
+    acc = sum(gpad[:, j:j + t] * pk.dw[j] for j in range(kk)) + pk.dwb
+    mean = acc.mean((1, 2), keepdim=True)
+    var = ((acc - mean) ** 2).mean((1, 2), keepdim=True)
+    gn = (acc - mean) * torch.rsqrt(var + 1e-5) * pk.norms[8] + pk.norms[9]
+    gs = rd(gn * torch.sigmoid(gn)).reshape(m, d)
+    x2 = x32 + (_tc_product(gs, w["pw2"], bn) + pk.pw2b)
+    h2 = rd(cl.layernorm(x2, pk.norms[6], pk.norms[7]))
+    y = _tc_product(h2, w["w1b"], bn) + pk.b1b
+    m2 = rd(y * torch.sigmoid(y))
+    out = x2 + 0.5 * (_tc_product(m2, w["w2b"], bn) + pk.b2b)
+    return out.reshape(b, t, d).to(cd)
+
+
+# the two tile widths the .cu chooses between (choose_bn). D = 72 gives a
+# partial 64-deep K slice (64 + 8) and partial column tiles at both;
+# B T = 140 rows, a full and a partial 128-row tile; dk = 18.
+@pytest.mark.parametrize("bn", [128, 192])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_conformer_tc_tiling_matches_plain(bn, dtype, atol):
+    """The bf16 halves' index math, emulated on the CPU, equals
+    half_a_plain / half_b_plain: the per-product tiling with partial tiles
+    and zero-filled slices, `pack_kmajor`'s (N, K) weights, the epilogue's
+    q|k|v and u/v split by column pairs, and the attention items' 16-row
+    query tiles, 64-key steps and Toeplitz offsets, with a length-0 row.
+    f32 at atol 1e-4 (order of sums); bf16 at 2e-2 of the output's scale
+    (the same rounding points; a sum on the other side of a rounding
+    boundary moves an intermediate by one bf16 ulp)."""
+    from cassnat_asr_public_tpu_torch.kernels import conformer_layer as cl
+    from cassnat_asr_public_tpu_torch.nn.modules import \
+        sinusoidal_position_encoding
+    b, t, d, h, f, k, r = 2, 70, 72, 4, 136, 7, 8
+    layer = _random_layer("cpu", d, h, f, k, seed=5)
+    pk = layer.packed(dtype)
+    w = {n: z.float() for n, z in
+         cl.pack_kmajor(layer.fused_operands(), dtype).items()}
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).to(dtype)
+    maskf = (torch.arange(t)[None, :] < torch.tensor([t, 0])[:, None]
+             ).float()
+    pos = pk.position(torch.from_numpy(
+        sinusoidal_position_encoding(2 * r + 1, d)).to(dtype))
+    for got, want in ((_tc_half_a(pk, w, x, maskf, pos, bn),
+                       cl.half_a_plain(pk, x, maskf, pos)),
+                      (_tc_half_b(pk, w, x, bn), cl.half_b_plain(pk, x))):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= atol * (1.0 if dtype == torch.float32 else scale), err
