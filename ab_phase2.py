@@ -1,7 +1,7 @@
 """A/B of chip_smoke.py's phase 2 (kernels against their plain versions at
 the LibriSpeech path shapes) between another tree and this one, on one card.
 
-    python3 ab_phase2.py OTHER_TREE
+    python3 ab_phase2.py [--ctc] OTHER_TREE
 
 OTHER_TREE is a checkout (e.g. `git archive <commit>
 cassnat_asr_public_tpu_torch chip_smoke.py` unpacked into a directory)
@@ -12,8 +12,12 @@ frontend and the bf16 conformer kernels (half_a, half_b, and the
 q-blocked pair half_a_kv and half_a_qblock, tq=64, the latter on the plain
 version's stage-1 outputs) at the path shape on the same inputs (this
 tree's `chip_smoke.conformer_path_inputs`, built with that tree's
-package), queued behind a spin kernel (`chip_smoke.queued_ms`). Prints the card's name and power limit and one
-JSON line per run.
+package), queued behind a spin kernel (`chip_smoke.queued_ms`). Then the
+four CTC kernels (Viterbi, alpha, beta/posterior, gradient scatter) are
+timed queued at the full-width training shape (this tree's
+`chip_smoke.train_ctc_batch(11)`: B=16, T'=200, S=199, V=4999). With
+--ctc only the CTC kernels run. Prints the card's name and power limit and
+one JSON line per run.
 """
 
 import argparse
@@ -42,6 +46,8 @@ import json, math, sys, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
 from cassnat_asr_public_tpu_torch.kernels import _build
+from cassnat_asr_public_tpu_torch.kernels import ctc_loss as kl
+from cassnat_asr_public_tpu_torch.kernels import ctc_viterbi as kv
 from cassnat_asr_public_tpu_torch.kernels import fused_frontend as ff
 torch.set_grad_enabled(False)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -49,6 +55,24 @@ torch.backends.cudnn.allow_tf32 = False
 dev = torch.device('cuda')
 _build.build()
 _build.lib()
+logits, labels, lens, ulen = (
+    t if t.is_floating_point() else t.int()
+    for t in inputs_module(sys.argv[1]).train_ctc_batch(11, dev))
+lp = torch.log_softmax(logits, -1)
+score, trellis = kl.ctc_alpha(lp, labels, lens, ulen)
+post, chains = kl.ctc_beta_grad(lp, labels, lens, ulen, trellis, score)
+cot = 1.0 / ulen.float() / lp.shape[0]
+ctc_runs = {
+    'ctc_viterbi': lambda: kv.ctc_viterbi(lp, labels, lens, ulen),
+    'ctc_alpha': lambda: kl.ctc_alpha(lp, labels, lens, ulen),
+    'ctc_beta_grad': lambda: kl.ctc_beta_grad(lp, labels, lens, ulen,
+                                              trellis, score),
+    'ctc_grad_scatter': lambda: kl.ctc_grad_scatter(post, labels, cot,
+                                                    lp.shape[2], chains)}
+ctc = {f'{k}_queued_ms': cs.queued_ms(fn, 50) for k, fn in ctc_runs.items()}
+if sys.argv[2] == 'ctc':
+    print('AB_RESULT ' + json.dumps(ctc), flush=True)
+    sys.exit(0)
 res = cs.phase_kernels(dev)
 c, f, b, t = 512, 240, cs.PATH_B, cs.PATH_T
 g = torch.Generator().manual_seed(1)
@@ -76,15 +100,16 @@ out = {'frontend_bf16_ms': fr[torch.bfloat16]['ms'],
        'frontend_f32_ms': fr[torch.float32]['ms'],
        'flash_bf16_ms': res['flash_attention'][torch.bfloat16]['ms'],
        **{f'{k}_bf16_ms': v[torch.bfloat16]['ms'] for k, v in res.items()
-          if k.startswith('conformer_')}, **half_q}
+          if k.startswith('conformer_')}, **half_q, **ctc}
 print('AB_RESULT ' + json.dumps(out), flush=True)
 """
 
 
-def run(tree: str) -> dict:
+def run(tree: str, mode: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", RUN_PHASE2,
-                           os.path.join(HERE, "chip_smoke.py")], cwd=tree,
-                          capture_output=True, text=True, timeout=900)
+                           os.path.join(HERE, "chip_smoke.py"), mode],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=900)
     for line in proc.stdout.splitlines():
         if line.startswith("AB_RESULT "):
             return json.loads(line[len("AB_RESULT "):])
@@ -94,6 +119,8 @@ def run(tree: str) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--ctc", action="store_true",
+                    help="time the CTC kernels only")
     ap.add_argument("other")
     a = ap.parse_args()
     trees = {"other": os.path.abspath(a.other), "this": HERE}
@@ -102,7 +129,7 @@ def main():
                          text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     for i, which in enumerate(("other", "this", "this", "other")):
-        r = run(trees[which])
+        r = run(trees[which], "ctc" if a.ctc else "all")
         print(json.dumps({"run": i, "tree": which, **r}), flush=True)
     return 0
 

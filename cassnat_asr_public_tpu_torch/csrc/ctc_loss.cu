@@ -16,7 +16,11 @@
 //                       reads no other row) and the score
 //                       logaddexp(alpha[S_b-1], alpha[S_b-2] if S_b >= 2).
 // ctc_beta_grad_kernel  one block per batch row, frames walked backwards
-//                       from len_b-1: beta (emission at t included) and
+//                       from len_b-1 by warps with their states in
+//                       registers, the emissions gathered by other blocks
+//                       of the launch and loaded ahead with the alpha rows
+//                       (ctc_dp.cuh, and the note above the kernel): beta
+//                       (emission at t included) and
 //                       d logZ / d lp_path[t, s] = exp(min(alpha + beta - lp
 //                       - logZ, 1)), 0 outside the row's states and for an
 //                       impossible row (logZ <= LOG_ZERO / 2). Writes the
@@ -35,12 +39,13 @@
 // kernel's `_logaddexp3` (:39-44) does. Built without fast math: expf, logf
 // and log1pf are the accurate ones.
 //
-// Bound on the H100: the two DPs are T dependent steps each (one block
-// barrier per frame), latency bound like the Viterbi kernel; the scatter
-// writes the (B, T, V) f32 gradient, which is the bytes of the backward.
+// Bound on the H100: the two DPs are T dependent steps each, latency bound
+// like the Viterbi kernel (the alpha DP with one block barrier per frame,
+// the beta DP without one; `beta_step_probe` measures the least time of
+// one beta step, T of which are its floor); the scatter writes the (B, T,
+// V) f32 gradient, which is the bytes of the backward.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ctc_dp.cuh"
 
 namespace {
 
@@ -127,86 +132,213 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ lp, long long sb,
     }
 }
 
-__global__ void ctc_beta_grad_kernel(
+// The beta/posterior DP (ctc_dp.cuh's layout): G gather blocks (the
+// launch's first, or a launch of their own ahead of it) copy lp[b, t,
+// path[s]] into lp_path in the DP's frame order (t descending); the DP
+// blocks hold W warps with K contiguous states a lane (K from S alone),
+// neighbours s+1 and s+2 by __shfl_down_sync, the warps' edge states
+// through shared memory with one named barrier of the DP warps a step; each
+// lane loads its states' gathered log-probs and alpha trellis entries
+// alpha[b, t, s] AHEAD frames before the step that needs them. Before the
+// DP the block builds the token chains from the path's tokens in shared
+// memory: each state scans the later states for its token (a blank state
+// looks at most two ahead, a label state at the later label states), and
+// a state is its token's first exactly when no state chains to it.
+template <int K>
+__global__ void __launch_bounds__(32 * ctcdp::MAX_WARPS) ctc_beta_grad_kernel(
         const float* __restrict__ lp, long long sb, long long st,
         const int* __restrict__ labels, const int* __restrict__ in_lens,
         const int* __restrict__ lab_lens, const float* __restrict__ alpha_all,
-        const float* __restrict__ score, int T, int U, int V, int blank,
-        float* __restrict__ post, int* __restrict__ nxt,
-        int* __restrict__ head) {
-    extern __shared__ float smem[];
+        const float* __restrict__ score, int B, int T, int U, int V,
+        int blank, int G, int W, float* lp_path, int* flags,
+        float* __restrict__ post,
+        int* __restrict__ nxt, int* __restrict__ head) {
+    // frames loaded ahead: a beta step is ~100 ns, an L2 round trip less
+    // than two; the frame loop is unrolled by as much
+    constexpr int AHEAD = 4;
     const int S = 2 * U + 1;
-    const int b = blockIdx.x;
-    float* b_prev = smem;
-    float* b_next = smem + S;
+    const int P = 32 * W;                  // DP threads, K * P states
+    const int SP = K * P;
+    extern __shared__ __align__(16) float smem[];
+    if ((int)blockIdx.x < G) {
+        ctcdp::gather_chunks(lp, sb, st, labels, in_lens, B, T, U, V, blank,
+                             true, SP, lp_path, flags,
+                             reinterpret_cast<int*>(smem), blockIdx.x, G);
+        CTC_MARK(6);
+        return;
+    }
+    const int b = blockIdx.x - G;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    float* edges = smem;                                   // [2][W][2]
+    int* tok_s = reinterpret_cast<int*>(edges + 4 * W);    // [S]
+    int* tgt_s = tok_s + S;                                // [S]
+
     const int* lab = labels + (long long)b * U;
     const int len = in_lens[b];
     const int plen = 2 * lab_lens[b] + 1;
     const int tn = len < T ? (len > 0 ? len : 0) : T;
-    const float* lpb = lp + (long long)b * sb;
+    const float* lpp = lp_path + (long long)b * T * SP;
     const float* ab = alpha_all + (long long)b * T * S;
     float* pb = post + (long long)b * T * S;
     const float logz = score[b];
     const bool bad_z = logz <= LOG_ZERO / 2;
 
     // the token chains the scatter walks: next state with the same token
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        int tok = path_at(lab, s, blank);
-        int first = 1;
-        for (int r = 0; r < s && first; ++r)
-            if (path_at(lab, r, blank) == tok) first = 0;
-        int n = -1;
-        for (int r = s + 1; r < S; ++r)
-            if (path_at(lab, r, blank) == tok) { n = r; break; }
-        nxt[(long long)b * S + s] = n;
-        head[(long long)b * S + s] = first;
-        b_prev[s] = LOG_ZERO;
+    for (int s = tid; s < S; s += blockDim.x) {
+        tok_s[s] = path_at(lab, s, blank);
+        tgt_s[s] = 0;
     }
     __syncthreads();
-
-    float lp_cur[MAXK];
-    int col[MAXK];    // the state's token
-    int vcol[MAXK];   // its column in lp, clamped into [0, V) for safety
-    bool skip2[MAXK];   // s -> s+2 blocked: s+2 out of range or same token
-    for (int k = 0; k < MAXK; ++k) {
-        int s = threadIdx.x + k * blockDim.x;
-        col[k] = s < S ? path_at(lab, s, blank) : 0;
-        skip2[k] = s + 2 >= S
-            || (s < S && path_at(lab, s + 2, blank) == col[k]);
-        vcol[k] = col[k] < 0 ? 0 : (col[k] >= V ? V - 1 : col[k]);
-        lp_cur[k] = (s < S && tn > 0)
-            ? lpb[(long long)(tn - 1) * st + vcol[k]] : 0.0f;
+    for (int s = tid; s < S; s += blockDim.x) {
+        const int tok = tok_s[s];
+        int n = -1;
+        if (tok == blank) {
+            // s+1 is a blank or a label state; s+2 is then a blank state
+            if (s + 1 < S && tok_s[s + 1] == blank) n = s + 1;
+            else if (s + 2 < S) n = s + 2;
+        } else {
+            for (int r = s + 2; r < S; r += 2)
+                if (tok_s[r] == tok) { n = r; break; }
+        }
+        nxt[(long long)b * S + s] = n;
+        if (n >= 0) tgt_s[n] = 1;
     }
-    for (int t = tn - 1; t >= 0; --t) {
-        float lp_nxt[MAXK];
-        for (int k = 0; k < MAXK; ++k) {
-            int s = threadIdx.x + k * blockDim.x;
-            lp_nxt[k] = (s < S && t >= 1)
-                ? lpb[(long long)(t - 1) * st + vcol[k]] : 0.0f;
+    __syncthreads();
+    for (int s = tid; s < S; s += blockDim.x)
+        head[(long long)b * S + s] = tgt_s[s] ? 0 : 1;
+
+    // this lane's states and the first frames loaded (frames tn-1 down)
+    const int s0 = tid * K;
+    unsigned skip2 = 0;   // bit k: no move s0+k -> s0+k+2
+    ctcdp::ChunkGate gate(flags + (long long)b * ctcdp::flag_words(T));
+    float lbuf[AHEAD][K], abuf[AHEAD][K];
+    if (warp < W) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int s = s0 + k;
+            if (s + 2 >= S || tok_s[s + 2] == tok_s[s]) skip2 |= 1u << k;
         }
-        for (int k = 0; k < MAXK; ++k) {
-            int s = threadIdx.x + k * blockDim.x;
-            if (s >= S) break;
-            const bool outside = s >= plen;
-            const float l = lp_cur[k];
-            float beta;
-            if (t == len - 1) {
-                bool terminal = s == plen - 1 || (s == plen - 2 && plen >= 2);
-                beta = (terminal && !outside) ? l : LOG_ZERO;
-            } else {
-                float l0 = b_prev[s];
-                float l1 = s < S - 1 ? b_prev[s + 1] : LOG_ZERO;
-                float l2 = skip2[k] ? LOG_ZERO : b_prev[s + 2];
-                beta = outside ? LOG_ZERO : l + logaddexp3(l0, l1, l2);
+        if (tn > 0) {
+            gate.wait(AHEAD - 1 < tn - 1 ? AHEAD - 1 : tn - 1);
+#pragma unroll
+            for (int j = 0; j < AHEAD; ++j) {
+                const int t = tn - 1 - (j < tn - 1 ? j : tn - 1);
+                ctcdp::load_k<K>(lpp + (long long)t * SP + s0, lbuf[j]);
+#pragma unroll
+                for (int k = 0; k < K; ++k)
+                    abuf[j][k] = s0 + k < S ? ab[(long long)t * S + s0 + k]
+                                            : 0.0f;
             }
-            b_next[s] = beta;
-            float g = ab[(long long)t * S + s] + beta - l - logz;
-            float p = expf(fminf(g, 1.0f));
-            pb[(long long)t * S + s] = (outside || bad_z) ? 0.0f : p;
-            lp_cur[k] = lp_nxt[k];
         }
-        __syncthreads();
-        float* tmp = b_prev; b_prev = b_next; b_next = tmp;
+    }
+    CTC_MARK(1);
+
+    if (warp < W) {
+        float bv[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) bv[k] = LOG_ZERO;
+        ctcdp::Edges edge(edges, W, warp, false);
+        for (int i0 = 0; i0 < tn; i0 += AHEAD) {
+            // the frames this block of steps loads, AHEAD steps on (past
+            // the row's start, frame 0 again): the loads are unconditional,
+            // so each step waits on its own loads only
+            gate.wait(i0 + 2 * AHEAD - 1 < tn - 1 ? i0 + 2 * AHEAD - 1
+                                                  : tn - 1);
+#pragma unroll
+            for (int j = 0; j < AHEAD; ++j) {
+                const int i = i0 + j;
+                const int t = tn - 1 - i;
+                const int tf = tn - 1 - (i + AHEAD < tn - 1 ? i + AHEAD
+                                                            : tn - 1);
+                float l[K], a[K];
+#pragma unroll
+                for (int k = 0; k < K; ++k) {
+                    l[k] = lbuf[j][k];
+                    a[k] = abuf[j][k];
+                }
+                ctcdp::load_k<K>(lpp + (long long)tf * SP + s0, lbuf[j]);
+#pragma unroll
+                for (int k = 0; k < K; ++k)
+                    abuf[j][k] = s0 + k < S ? ab[(long long)tf * S + s0 + k]
+                                            : 0.0f;
+                if (i >= tn) continue;
+                const float2 e = edge.read(i, LOG_ZERO);   // +1, +2 past
+                float n1 = __shfl_down_sync(ctcdp::FULL, bv[0], 1);
+                float n2;
+                if (K >= 2)
+                    n2 = __shfl_down_sync(ctcdp::FULL, bv[K >= 2 ? 1 : 0],
+                                          1);
+                else
+                    n2 = __shfl_down_sync(ctcdp::FULL, bv[0], 2);
+                if (lane == 31) { n1 = e.x; n2 = e.y; }
+                if (K == 1 && lane == 30) n2 = e.x;
+                const bool init = t == len - 1;
+                float nb[K];
+#pragma unroll
+                for (int k = 0; k < K; ++k) {
+                    const int s = s0 + k;
+                    const bool outside = s >= plen;
+                    const float lk = l[k];
+                    float beta;
+                    if (init) {
+                        const bool terminal =
+                            s == plen - 1 || (s == plen - 2 && plen >= 2);
+                        beta = (terminal && !outside) ? lk : LOG_ZERO;
+                    } else {
+                        const float l0 = bv[k];
+                        float l1 = k + 1 < K ? bv[k + 1 < K ? k + 1 : 0]
+                                             : n1;
+                        float l2 = k + 2 < K ? bv[k + 2 < K ? k + 2 : 0]
+                                             : (k + 1 < K ? n1 : n2);
+                        if (s + 1 >= S) l1 = LOG_ZERO;
+                        if ((skip2 >> k) & 1u) l2 = LOG_ZERO;
+                        beta = outside ? LOG_ZERO
+                                       : lk + logaddexp3(l0, l1, l2);
+                    }
+                    nb[k] = beta;
+                    const float g = a[k] + beta - lk - logz;
+                    const float p = expf(fminf(g, 1.0f));
+                    if (s < S)
+                        pb[(long long)t * S + s] =
+                            (outside || bad_z) ? 0.0f : p;
+                }
+#pragma unroll
+                for (int k = 0; k < K; ++k) bv[k] = nb[k];
+                // states s0 and s0+1 of lane 0 are the previous warp's s+1
+                // and s+2
+                float v1;
+                if (K >= 2) v1 = bv[K >= 2 ? 1 : 0];
+                else v1 = __shfl_down_sync(ctcdp::FULL, bv[0], 1);
+                edge.write(i, warp, lane == 0, bv[0], v1);
+            }
+        }
+    }
+    __syncthreads();
+    CTC_MARK(2);
+}
+
+// One warp running `steps` beta steps in a dependent chain: a shuffle from
+// the neighbouring lane, logaddexp3 (three accurate expf, one logf) and an
+// add. Writes the elapsed %globaltimer ns and clock cycles.
+__global__ void beta_step_probe(const float* __restrict__ in, int steps,
+                                float* __restrict__ out,
+                                long long* __restrict__ elapsed) {
+    const int lane = threadIdx.x;
+    float x = in[lane];
+    const float r = in[32 + lane], l = in[64 + lane];
+    long long t0, c0, t1, c1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) : "f"(x));
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(c0) : "f"(x));
+    for (int i = 0; i < steps; ++i) {
+        const float p = __shfl_down_sync(ctcdp::FULL, x, 1);
+        x = logaddexp3(x, p, r) + l;
+    }
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(c1) : "f"(x));
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) : "f"(x));
+    out[lane] = x;
+    if (lane == 0) {
+        elapsed[0] = t1 - t0;
+        elapsed[1] = c1 - c0;
     }
 }
 
@@ -255,6 +387,43 @@ int threads_for(int S) {
     return threads > 1024 ? 1024 : threads;
 }
 
+// The gather blocks and the B DP blocks in one cooperative launch, or
+// apart where no gather block fits beside the rows (ctc_dp.cuh).
+template <int K>
+int launch_beta_grad(const float* lp, long long sb, long long st,
+                     const int* labels, const int* in_lens,
+                     const int* lab_lens, const float* alpha_all,
+                     const float* score, int B, int T, int U, int V,
+                     int blank, int W, float* lp_path, int* flags,
+                     float* post, int* nxt, int* head, cudaStream_t stream) {
+    const int S = 2 * U + 1;
+    const int threads = 32 * (W < 4 ? 4 : W);
+    const size_t smem = ctcdp::edge_bytes(W) + 2 * sizeof(int) * (size_t)S;
+    const void* kern = (const void*)ctc_beta_grad_kernel<K>;
+    cudaError_t e = (cudaError_t)set_smem(kern, smem);
+    ctcdp::LaunchPlan plan;
+    if (e == cudaSuccess)
+        e = ctcdp::launch_plan(kern, B, T, threads, smem, &plan);
+    if (e != cudaSuccess) return (int)e;
+    int G = plan.G;
+    if (plan.together) {
+        void* args[] = {&lp, &sb, &st, &labels, &in_lens, &lab_lens,
+                        &alpha_all, &score, &B, &T, &U, &V, &blank, &G, &W,
+                        &lp_path, &flags, &post, &nxt, &head};
+        return (int)cudaLaunchCooperativeKernel(kern, dim3(G + B),
+                                                dim3(threads), args, smem,
+                                                stream);
+    }
+    ctc_beta_grad_kernel<K><<<G, threads, sizeof(int) * (size_t)S,
+                              stream>>>(
+        lp, sb, st, labels, in_lens, lab_lens, alpha_all, score, B, T, U, V,
+        blank, G, W, lp_path, flags, post, nxt, head);
+    ctc_beta_grad_kernel<K><<<B, threads, smem, stream>>>(
+        lp, sb, st, labels, in_lens, lab_lens, alpha_all, score, B, T, U, V,
+        blank, 0, W, lp_path, flags, post, nxt, head);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int cassnat_ctc_alpha(const float* lp, long long sb, long long st,
@@ -276,23 +445,48 @@ extern "C" int cassnat_ctc_alpha(const float* lp, long long sb, long long st,
     return (int)cudaGetLastError();
 }
 
+// The layout follows from S (ctcdp::layout_for); lp_path (B, T, SP) f32
+// scratch and flags (B, flag words) int32 zeros, of the sizes
+// cassnat_ctc_dp_scratch gives
 extern "C" int cassnat_ctc_beta_grad(const float* lp, long long sb,
                                      long long st, const int* labels,
                                      const int* in_lens, const int* lab_lens,
                                      const float* alpha_all,
                                      const float* score, int B, int T, int U,
-                                     int V, int blank, float* post, int* nxt,
+                                     int V, int blank, float* lp_path,
+                                     int* flags, float* post, int* nxt,
                                      int* head, void* stream) {
-    const int S = 2 * U + 1;
     if (B <= 0 || T <= 0) return 0;
-    int threads = threads_for(S);
-    if (S > MAXK * threads) return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(float) * 2 * (size_t)S;
-    int e = set_smem((const void*)ctc_beta_grad_kernel, smem);
-    if (e) return e;
-    ctc_beta_grad_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        lp, sb, st, labels, in_lens, lab_lens, alpha_all, score, T, U, V,
-        blank, post, nxt, head);
+    const ctcdp::Layout L = ctcdp::layout_for(2 * U + 1);
+    if (L.W > ctcdp::MAX_WARPS) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (L.K) {
+    case 1: return launch_beta_grad<1>(lp, sb, st, labels, in_lens, lab_lens,
+                                       alpha_all, score, B, T, U, V, blank,
+                                       L.W, lp_path, flags, post, nxt, head,
+                                       s);
+    case 2: return launch_beta_grad<2>(lp, sb, st, labels, in_lens, lab_lens,
+                                       alpha_all, score, B, T, U, V, blank,
+                                       L.W, lp_path, flags, post, nxt, head,
+                                       s);
+    case 4: return launch_beta_grad<4>(lp, sb, st, labels, in_lens, lab_lens,
+                                       alpha_all, score, B, T, U, V, blank,
+                                       L.W, lp_path, flags, post, nxt, head,
+                                       s);
+    default: return launch_beta_grad<8>(lp, sb, st, labels, in_lens,
+                                        lab_lens, alpha_all, score, B, T, U,
+                                        V, blank, L.W, lp_path, flags, post,
+                                        nxt, head, s);
+    }
+}
+
+// The probe: `steps` dependent beta steps on one warp; elapsed[0] ns,
+// elapsed[1] clock cycles.
+extern "C" int cassnat_ctc_beta_step_probe(const float* in, int steps,
+                                           float* out, long long* elapsed,
+                                           void* stream) {
+    beta_step_probe<<<1, 32, 0, (cudaStream_t)stream>>>(in, steps, out,
+                                                        elapsed);
     return (int)cudaGetLastError();
 }
 

@@ -49,11 +49,14 @@ SIGNATURES = {
     "cassnat_conformer_half_a_kv": [_PA, _IA, _I, _P],
     "cassnat_conformer_half_a_qblock": [_PA, _IA, _I, _P],
     "cassnat_ctc_viterbi": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _P],
+    "cassnat_ctc_dp_scratch": [_I, _I, _P],
+    "cassnat_ctc_viterbi_step_probe": [_P, _I, _P, _P, _P],
     "cassnat_ctc_alpha": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P, _P, _P],
     "cassnat_ctc_beta_grad": [_P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _P, _P, _P, _P],
+                              _I, _I, _P, _P, _P, _P, _P, _P],
+    "cassnat_ctc_beta_step_probe": [_P, _I, _P, _P, _P],
     "cassnat_ctc_grad_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _P, _P],
 }

@@ -15,13 +15,22 @@ scatter of that gradient to the vocabulary, times the per-row cotangent
   alpha trellis and whose backward runs the beta/gradient kernels.
 
 On the H100 (csrc/ctc_loss.cu): the alpha and beta DPs are one block per
-batch row walking the T frames with their state in shared memory and
-gathering each state's log-prob from (B, T, V) themselves; both are T
-dependent steps, bound by per-frame latency. The scatter is one block per
-(b, t) that writes the whole vocabulary row: it moves the (B, T, V) f32
-gradient, the bytes of the backward. The scatter sums each token's states
-in a fixed order and writes each column from one thread, so the gradient is
-deterministic (no atomics).
+batch row walking the T frames; both are T dependent steps, bound by the
+latency of one step. The alpha DP keeps its state in shared memory, one
+block barrier per frame, and gathers each state's log-prob one frame
+ahead. The beta DP has ctc_viterbi's layout (csrc/ctc_dp.cuh): gather
+blocks (in one cooperative launch with the DP blocks) copy the path
+log-probs into a scratch, frames in the DP's (descending) order, and the
+DP block's warps hold the states (1 a lane up to 512) in registers,
+exchange neighbours by shuffles and through shared memory across warps
+(one named barrier a frame), and load the gathered rows and the alpha
+rows 4 frames ahead of the step; it builds the token chains from the
+path's tokens in shared memory before the DP. `dp_step_latency` runs the
+one-warp probes of one Viterbi and one beta step (off the main path).
+The scatter is one block per (b, t) that writes the whole vocabulary row:
+it moves the (B, T, V) f32 gradient, the bytes of the backward. The
+scatter sums each token's states in a fixed order and writes each column
+from one thread, so the gradient is deterministic (no atomics).
 
 `ctc_alpha`, `ctc_beta_grad` and `ctc_grad_scatter` launch the kernels for
 CUDA tensors and compute their plain versions only for CPU tensors;
@@ -30,7 +39,7 @@ CUDA tensors and compute their plain versions only for CPU tensors;
 
 import torch
 
-from cassnat_asr_public_tpu_torch.kernels import _build
+from cassnat_asr_public_tpu_torch.kernels import _build, ctc_dp
 from cassnat_asr_public_tpu_torch.ops.ctc import (LOG_ZERO, _final_pair,
                                                   _interleave_blanks,
                                                   _path_setup)
@@ -188,11 +197,13 @@ def ctc_beta_grad(log_probs, labels, input_lengths, label_lengths, trellis,
     nxt = torch.empty((bs, smax), dtype=torch.int32, device=lp.device)
     head = torch.empty((bs, smax), dtype=torch.int32, device=lp.device)
     if bs and tmax:
+        lp_path, flags = ctc_dp.scratch(bs, tmax, smax, lp.device)
         err = _build.lib().cassnat_ctc_beta_grad(
             lp.data_ptr(), lp.stride(0), lp.stride(1), lab.data_ptr(),
             in_lens.data_ptr(), lab_lens.data_ptr(), trellis.data_ptr(),
             score.float().contiguous().data_ptr(), bs, tmax, umax, vocab,
-            blank, post.data_ptr(), nxt.data_ptr(), head.data_ptr(),
+            blank, lp_path.data_ptr(), flags.data_ptr(),
+            post.data_ptr(), nxt.data_ptr(), head.data_ptr(),
             _build.stream_ptr(lp.device))
         _build.check(err, "ctc_beta_grad")
         launches["beta_grad"] += 1
@@ -221,6 +232,29 @@ def ctc_grad_scatter(post, labels, cot, vocab, chains=None, blank=0):
         _build.check(err, "ctc_grad_scatter")
         launches["grad_scatter"] += 1
     return grad
+
+
+def dp_step_latency(kind, dev, steps):
+    """(ns, clock cycles) of one dependent step of a CTC DP on one warp:
+    kind "viterbi" (a shuffle, two max and an add) or "beta" (a shuffle,
+    logaddexp3 and an add), from `steps` chained steps timed inside the
+    probe kernel. T' of them are the DP's latency floor."""
+    if kind not in ("viterbi", "beta"):
+        raise ValueError(f"dp_step_latency: unknown kind {kind!r}")
+    g = torch.Generator().manual_seed(0)
+    inp = torch.cat([-torch.rand(32, generator=g),
+                     -2.0 - torch.rand(32, generator=g),
+                     -1.0 - torch.rand(32, generator=g)]).to(dev)
+    out = torch.empty(32, device=dev)
+    elapsed = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = getattr(_build.lib(), f"cassnat_ctc_{kind}_step_probe")
+    _build.check(fn(inp.data_ptr(), steps, out.data_ptr(),
+                    elapsed.data_ptr(), _build.stream_ptr(dev)),
+                 f"{kind}_step_probe")
+    ns, cycles = elapsed.tolist()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{kind}_step_probe: non-finite chain")
+    return ns / steps, cycles / steps
 
 
 class CTCForwardScore(torch.autograd.Function):

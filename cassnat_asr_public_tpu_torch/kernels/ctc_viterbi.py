@@ -14,13 +14,22 @@ backtrace clipped to [0, S-1], and `_collapse_and_shift`.
   int32, states (B, T) int32, offsets (B, T, S) int32, final alpha (B, S)
   f32).
 
-On the H100 (csrc/ctc_viterbi.cu): one block per batch row walks the T
-frames with alpha in shared memory and gathers each state's log-prob from
-(B, T, V) itself, then backtraces and collapses in the same launch. The DP
-is T dependent steps, so the kernel is bound by its per-frame latency (a
-block barrier and a gathered load), not by bytes or operations; a batch
-fills B of the 132 SMs. Max and add are exact: every output equals the
-plain version bit for bit.
+On the H100 (csrc/ctc_viterbi.cu, csrc/ctc_dp.cuh): gather blocks and one
+DP block per batch row, in one cooperative launch (or the gather blocks in
+a launch of their own first, where none fits beside the rows). The gather
+blocks copy lp[b, t, path[s]] into a (B, T, SP) scratch chunk by chunk of
+8 frames and flag each chunk. The DP block's warps hold the fewest
+contiguous states a lane that fit S in 16 warps (1 up to 512 states) in
+registers, exchange neighbours by warp shuffles and the warps' edge states
+through shared memory (one named barrier of the DP warps a frame), and
+load the gathered rows 16 frames ahead of the step. The offsets are kept
+as bytes in shared memory, where the backtrace reads them, and go to the
+output in 16-byte stores after it; a row whose T x S bytes do not fit
+takes the stated other branch: the DP stores them to the output and the
+backtrace reads them back from device memory. The DP is T dependent
+steps, so the kernel is bound by the latency of one step, not by bytes or
+operations. Max and add are exact: every output equals the plain version
+bit for bit.
 
 `ctc_viterbi` launches the kernel for CUDA tensors and computes
 `ctc_viterbi_plain` only for CPU tensors; `launches` counts kernel launches.
@@ -28,12 +37,12 @@ plain version bit for bit.
 
 import torch
 
-from cassnat_asr_public_tpu_torch.kernels import _build
+from cassnat_asr_public_tpu_torch.kernels import _build, ctc_dp
 from cassnat_asr_public_tpu_torch.ops.ctc import (LOG_ZERO,
                                                   _collapse_and_shift,
                                                   _final_pair, _path_setup)
 
-MAX_STATES = 4096   # 4 states per thread, 1024 threads
+MAX_STATES = 4096   # 16 warps of 32 lanes, 8 states a lane
 launches = 0
 
 
@@ -113,9 +122,11 @@ def ctc_viterbi(log_probs, labels, input_lengths, label_lengths, blank=0):
     shift = torch.empty((bs, tmax), dtype=torch.int32, device=dev)
     if bs == 0 or tmax == 0:
         return shift, states, offsets, alpha
+    lp_path, flags = ctc_dp.scratch(bs, tmax, smax, dev)
     err = _build.lib().cassnat_ctc_viterbi(
         lp.data_ptr(), lp.stride(0), lp.stride(1), lab.data_ptr(),
         in_lens.data_ptr(), lab_lens.data_ptr(), bs, tmax, umax, vocab, blank,
+        lp_path.data_ptr(), flags.data_ptr(),
         offsets.data_ptr(), alpha.data_ptr(), states.data_ptr(),
         shift.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "ctc_viterbi")

@@ -32,7 +32,11 @@ Phases, each announced on a flushed progress line:
               rel, two backward passes bit-identical; loss and logit
               gradient against torch.nn.functional.ctc_loss; times of
               kernel, plain version and library call, the bytes bound and
-              T' (the DPs' dependent steps).
+              T' (the DPs' dependent steps). The latency floor of each DP:
+              T' x the time of one dependent step of its arithmetic on one
+              warp (`ctc_loss.dp_step_latency`: a shuffle, two max and an
+              add for Viterbi; a shuffle, logaddexp3 and an add for alpha
+              and beta), printed beside the bytes bound.
   3. path   - the main decode path: greedy CASS-NAT decode of one B=32, T=736,
               F=240 batch at the full width of the LibriSpeech config
               (egs/librispeech/conf/cassnat_train.yaml), seeded random
@@ -734,6 +738,11 @@ def phase_train_kernels(dev):
                          .item()}[name],
             ms=queued_ms(kern), call_ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 2, warmup=1),
             library_ms=cuda_ms(lib, 20))
+    steps = {kind: kl.dp_step_latency(kind, dev, 64 * t_max)
+             for kind in ("viterbi", "beta")}
+    for kind, (ns, cycles) in steps.items():
+        log(f"  one {kind} step on one warp: {ns:.2f} ns, {cycles:.1f} "
+            f"cycles (mean of {64 * t_max} chained steps)")
     bounds = ctc_bounds(lens, ulen, t_max, s_max, vocab)
     for name, row in out.items():
         nbytes, ops = bounds[name]
@@ -741,14 +750,26 @@ def phase_train_kernels(dev):
         row.update(bound_ms=bound, dependent_steps=t_max,
                    bound_by="bytes" if nbytes / PEAK_BYTES
                    >= ops / PEAK_OPS[torch.float32] else "operations")
+        kind = DP_STEP.get(name)
+        floor = "" if kind is None else \
+            f", latency floor {t_max * steps[kind][0] * 1e-6:.4f} ms"
+        if kind is not None:
+            row.update(floor_ms=t_max * steps[kind][0] * 1e-6,
+                       step_ns=steps[kind][0], step_cycles=steps[kind][1])
         lib = "none" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
         log(f"  {name} f32: kernel {row['ms']:.4f} ms (queued; "
             f"{row['call_ms']:.4f} ms per unqueued call), plain "
             f"{row['plain_ms']:.3f} ms, library {lib}, bound {bound:.4f} ms "
             f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop; {t_max} dependent "
-            f"steps)")
+            f"steps){floor}")
     return out
+
+
+# the DP step whose latency x T' is each CTC kernel's floor (the alpha DP's
+# step is the beta DP's arithmetic)
+DP_STEP = {"ctc_viterbi": "viterbi", "ctc_alpha": "beta",
+           "ctc_beta_grad": "beta"}
 
 
 def random_params(model, seed):
